@@ -18,13 +18,14 @@ from tokenmonster_tpu.ops.scan import DeviceVocab
 from test_scan_parity import ENGLISH, capcode_vocab  # noqa: F401
 
 
-def _tables(vocab, data, dense=False):
+def _tables(vocab, data, extra=0):
     import tokenmonster_tpu.ops.match as match
     from tokenmonster_tpu.ops.automaton import build_match_automata
 
     dv = DeviceVocab.build(vocab)
     n = len(data)
-    arr = np.frombuffer(bytes(data), np.uint8)
+    # ``extra`` zero bytes past n: the padded dispatch buffer layout
+    arr = np.frombuffer(bytes(data) + bytes(extra), np.uint8)
     main, space = build_match_automata(vocab)
     m = compute_match_table(main, arr)
     pad = np.zeros(64, np.uint32)
@@ -40,16 +41,15 @@ def _tables(vocab, data, dense=False):
     bb = jnp.asarray(np.concatenate([
         vocab.begin_byte.astype(np.int32)[arr],
         np.full(64, int(vocab.begin_byte[0]), np.int32)]))
-    kw = dict(meta5=dv.meta5, dense_min=0) if dense else {}
     ctl, tok = decision_tables(
         m_tab, mb_tab, bb, dv.p1, dv.index1, dv.index2, dv.ids,
         n, has_delete, dv.has_unk, dv.unk_token & 0xFFFFFF,
-        lil_off=dv.lil_off, **kw)
+        lil_off=dv.lil_off)
     return ctl, tok, dv
 
 
-def _assert_chain_parity(vocab, data, dense=False):
-    ctl, tok, dv = _tables(vocab, data, dense=dense)
+def _assert_chain_parity(vocab, data, extra=0):
+    ctl, tok, dv = _tables(vocab, data, extra=extra)
     got_ids, got_missing = chain_follow_host(
         ctl, tok, len(data), dv.delete_token & 0xFFFFFF)
     want_ids, want_missing = host_tokenize(vocab, data)
@@ -69,13 +69,17 @@ def test_decision_chain_random(capcode_vocab):  # noqa: F811
 
 
 def test_decision_chain_dense_capcode(capcode_vocab):  # noqa: F811
-    """Dense mode (window selects + palt + per-position meta tables) builds
-    byte-identical decision tables — forced on a small buffer."""
+    """Decision tables over a padded buffer (the dispatch layout, where
+    the tables run past the n valid bytes) are identical on [0, n) to the
+    exact-size tables, and their chain matches the oracle."""
     data = normalize_and_capcode(ENGLISH * 2, 2, capcode_vocab.normalizer)
-    _assert_chain_parity(capcode_vocab, data, dense=True)
-    a, ta, _ = _tables(capcode_vocab, data, dense=False)
-    b, tb, _ = _tables(capcode_vocab, data, dense=True)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    n = len(data)
+    _assert_chain_parity(capcode_vocab, data, extra=777)
+    a, ta, _ = _tables(capcode_vocab, data)
+    b, tb, _ = _tables(capcode_vocab, data, extra=777)
+    np.testing.assert_array_equal(np.asarray(a)[:, :n],
+                                  np.asarray(b)[:, :n])
     # token words may differ only where ctl has no emission
-    emit = (np.asarray(a) & (1 << 7)) != 0
-    np.testing.assert_array_equal(np.asarray(ta)[emit], np.asarray(tb)[emit])
+    emit = (np.asarray(a)[:, :n] & (1 << 7)) != 0
+    np.testing.assert_array_equal(np.asarray(ta)[:, :n][emit],
+                                  np.asarray(tb)[:, :n][emit])

@@ -68,13 +68,13 @@ def test_psum_equals_single_device(setup):
 
 
 def test_scores_match_native_backend(setup):
-    """TPU strip-mode scoring == native scoring when strips == lanes."""
+    """Device strip-mode scoring == native scoring when strips == lanes."""
     from tokenmonster_tpu import native
     if native.get_lib() is None:
         pytest.skip("no C++ toolchain")
     v, corpus = setup
     chunk = 512
-    s_tpu, t_tpu, m_tpu, total = _run(v, corpus, 1, chunk=chunk)
+    s_dev, t_dev, m_dev, total = _run(v, corpus, 1, chunk=chunk)
     nv = native.NativeVocab(v)
     scores = np.zeros(len(v.reverse) + 1, np.int64)
     n_tok = 0
@@ -82,5 +82,5 @@ def test_scores_match_native_backend(setup):
     for i in range(0, total, chunk):
         nt, miss = nv.tokenize_score(data[i:i + chunk], scores)
         n_tok += nt
-    np.testing.assert_array_equal(s_tpu, scores[:len(v.reverse)])
-    assert t_tpu == n_tok
+    np.testing.assert_array_equal(s_dev, scores[:len(v.reverse)])
+    assert t_dev == n_tok

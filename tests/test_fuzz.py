@@ -1,4 +1,4 @@
-"""Randomised cross-implementation fuzz: oracle vs native vs TPU kernels."""
+"""Randomised cross-implementation fuzz: oracle vs native vs device path."""
 
 import numpy as np
 import pytest
@@ -48,7 +48,7 @@ def _random_text(rng, n):
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 @pytest.mark.parametrize("capcode", [0, 2])
-def test_fuzz_oracle_native_tpu(seed, capcode):
+def test_fuzz_oracle_native_device(seed, capcode):
     rng = np.random.default_rng(seed * 10 + capcode)
     v = _random_vocab(rng, capcode)
     text = _random_text(rng, 1600)
@@ -65,8 +65,8 @@ def test_fuzz_oracle_native_tpu(seed, capcode):
         w2, m2 = host_tokenize(v, data + data * 8)
         np.testing.assert_array_equal(got_ids2, np.asarray(w2))
 
-    from tokenmonster_tpu.ops.scan import TpuTokenizer
-    tk = TpuTokenizer(v, chunk=256)
+    from tokenmonster_tpu.ops.scan import DeviceTokenizer
+    tk = DeviceTokenizer(v, chunk=256)
     t_ids, t_missing = tk.tokenize(data)
     np.testing.assert_array_equal(np.asarray(t_ids), np.asarray(want_ids))
     assert t_missing == want_missing

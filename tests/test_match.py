@@ -44,13 +44,12 @@ def test_match_table_vs_oracle(small_vocab):
         np.testing.assert_array_equal(got_r, want_r)
 
 
-def test_match_table_gpt2():
-    from tokenmonster_tpu.train.imports import import_gpt2_json
-    v = import_gpt2_json("/root/reference/yaml_guide/gpt2.json")
+def test_match_table_realtext(realtext_any):
+    v = realtext_any
     text = (b"The quick brown fox jumps over the lazy dog. "
             b"Programming languages: Python, C++, Go; \xe4\xbd\xa0\xe5\xa5\xbd"
             b" int main() { return 0; } // comment\n#include <stdio.h>\n") * 3
-    data = np.frombuffer(text, np.uint8)
+    data = np.frombuffer(v.normalize(text), np.uint8)
     main, space = build_match_automata(v)
     got = compute_match_table(main, data, chunk=128)
     want = reference_match_table(v, data)

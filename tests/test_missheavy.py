@@ -1,11 +1,9 @@
 """Miss-heavy corpora through the compiled device path (VERDICT r4 #7).
 
-The in-kernel stitch compaction's fast path requires every kept record to
-emit one output slot; a missing byte WITHOUT an unk token emits nothing,
-so such dispatches must fail sync_ok and fall back to the exact host
-stitcher.  These tests drive binary bytes against a letters-only
-vocabulary (no unk) end-to-end and assert exact ids, plus the unk variant
-that stays on the fast path."""
+A missing byte WITHOUT an unk token emits nothing, so the device stitch
+must handle records with no output slot.  These tests drive binary bytes
+against a letters-only vocabulary (no unk) end-to-end and assert exact
+ids, plus the unk variant."""
 
 import numpy as np
 import pytest
@@ -42,11 +40,10 @@ def _binary_corpus(n=40000, seed=7):
 
 @pytest.mark.parametrize("unk", [False, True])
 def test_missheavy_device_parity(unk):
-    from tokenmonster_tpu.ops.scan import TpuTokenizer
+    from tokenmonster_tpu.ops.scan import DeviceTokenizer
     v = _vocab(unk)
     data = _binary_corpus()
-    tk = TpuTokenizer(v, chunk=2048)
-    assert tk.engine == "pallas"
+    tk = DeviceTokenizer(v, chunk=2048)
     want_ids, want_missing = host_tokenize(v, data)
     got_ids, got_missing = tk.tokenize(data)
     assert got_missing == want_missing
@@ -58,12 +55,12 @@ def test_missheavy_device_parity(unk):
 def test_missheavy_fast_window_overflow_retries_full():
     """Dense/miss-heavy data (~1 byte per record) overflows the fast
     record window; tokenize_staged must retry on the full-window variant
-    and still produce exact ids on device (this geometry routes the
-    XLA stitch, which handles non-emitting records)."""
-    from tokenmonster_tpu.ops.scan import TpuTokenizer
+    and still produce exact ids on device (the device stitch handles
+    non-emitting records)."""
+    from tokenmonster_tpu.ops.scan import DeviceTokenizer
     v = _vocab(False)
     data = _binary_corpus()
-    tk = TpuTokenizer(v, chunk=2048)
+    tk = DeviceTokenizer(v, chunk=2048)
     res = tk.tokenize_staged(tk.stage(data))
     assert res is not None and tk.last_mode == "full"
     want_ids, want_missing = host_tokenize(v, data)

@@ -48,7 +48,7 @@ def test_native_capcode_streaming():
 
 
 @pytest.fixture(scope="module")
-def vocabs():
+def small_vocab():
     v1 = Vocab()
     v1._generate(tokens=[b" hello", b" world", b"hello", b"hell", b"he",
                          b" he", b" the", b"the", b" quick", b"quick",
@@ -57,25 +57,26 @@ def vocabs():
                          b"  ", b"\n"],
                  charset=1, normalize_string="none", using_capcode=2,
                  level=5, reserve=8, reset_token_ids=True)
-    from tokenmonster_tpu.train.imports import import_gpt2_json
-    v2 = import_gpt2_json("/root/reference/yaml_guide/gpt2.json")
-    return v1, v2
+    return v1
 
 
-def test_native_tokenize_parity(vocabs):
-    v1, v2 = vocabs
+@pytest.mark.parametrize("which", ["small", "realtext32k",
+                                   "realtext32k_cc0"])
+def test_native_tokenize_parity(which, request):
+    vocab = request.getfixturevalue(
+        {"small": "small_vocab", "realtext32k": "realtext_vocab",
+         "realtext32k_cc0": "realtext_cc0_vocab"}[which])
     rng = np.random.default_rng(3)
     rand = rng.integers(0, 256, size=2000, dtype=np.uint8).tobytes()
     samples = TEXTS + [rand, (TEXTS[0] + TEXTS[1]) * 20]
-    for vocab in vocabs:
-        nv = native.NativeVocab(vocab)
-        for raw in samples:
-            data = normalize_and_capcode(raw, vocab.using_capcode,
-                                         vocab.normalizer)
-            want_ids, want_missing = host_tokenize(vocab, data)
-            got_ids, got_missing = nv.tokenize(data)
-            assert got_missing == want_missing
-            np.testing.assert_array_equal(got_ids, np.asarray(want_ids))
+    nv = native.NativeVocab(vocab)
+    for raw in samples:
+        data = normalize_and_capcode(raw, vocab.using_capcode,
+                                     vocab.normalizer)
+        want_ids, want_missing = host_tokenize(vocab, data)
+        got_ids, got_missing = nv.tokenize(data)
+        assert got_missing == want_missing
+        np.testing.assert_array_equal(got_ids, np.asarray(want_ids))
 
 
 def test_native_sorted_windows_parity():

@@ -51,21 +51,14 @@ def test_meta_parity(capcode):
     np.testing.assert_array_equal(va.begin_byte, vb.begin_byte)
 
 
-def test_meta_parity_gpt2_sample():
-    import json
-    with open("/root/reference/yaml_guide/gpt2.json") as f:
-        mapping = json.load(f)
-    from tokenmonster_tpu.train.imports import gpt2_byte_decoder
-    dec = gpt2_byte_decoder()
-    toks = []
-    for i, tok in enumerate(mapping):
-        if i % 17 == 0 and all(c in dec for c in tok):
-            b = bytes(dec[c] for c in tok)
-            if 0 < len(b) <= 40:
-                toks.append(b)
-    toks = toks[:1500]
-    va = _build(toks, 0, force_python=False)
-    vb = _build(toks, 0, force_python=True)
+@pytest.mark.parametrize("capcode", [0, 2])
+def test_meta_parity_realtext_sample(realtext_vocab, capcode):
+    """Every 17th token of the in-repo 32k vocabulary: native and Python
+    metadata builders agree exactly."""
+    toks = [bytes(t) for i, t in enumerate(realtext_vocab.tokens)
+            if i % 17 == 0 and 0 < len(t) <= 40][:1500]
+    va = _build(toks, capcode, force_python=False)
+    vb = _build(toks, capcode, force_python=True)
     np.testing.assert_array_equal(va.flag, vb.flag)
     np.testing.assert_array_equal(va.nwords, vb.nwords)
     np.testing.assert_array_equal(va.index1, vb.index1)

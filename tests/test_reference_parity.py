@@ -37,8 +37,19 @@ def gpt2_vocab():
     return import_gpt2_json(GPT2_JSON)
 
 
-def _vocab_for(case, gpt2, cc2):
-    return gpt2 if case["vocab"] == "gpt2" else cc2
+@pytest.fixture(params=["gpt2", "capcode2_synth"])
+def fixture_vocab(request, capcode_vocab):  # noqa: F811
+    """(fixture vocabulary name, Vocab): the gpt2 cases need the reference
+    checkout's gpt2.json and skip without it."""
+    if request.param == "gpt2":
+        return "gpt2", request.getfixturevalue("gpt2_vocab")
+    return "capcode2_synth", capcode_vocab
+
+
+def _cases(name):
+    cases = [c for c in _load()["fixtures"] if c["vocab"] == name]
+    assert cases, name
+    return cases
 
 
 def test_reference_ids_exist():
@@ -49,10 +60,10 @@ def test_reference_ids_exist():
     assert cc2, "capcode-2 anchor cases missing"
 
 
-def test_host_oracle_matches_reference(gpt2_vocab, capcode_vocab):  # noqa: F811
+def test_host_oracle_matches_reference(fixture_vocab):
     from tokenmonster_tpu.core.tokenizer import tokenize as host_tokenize
-    for case in _load()["fixtures"]:
-        v = _vocab_for(case, gpt2_vocab, capcode_vocab)
+    name, v = fixture_vocab
+    for case in _cases(name):
         data = bytes.fromhex(case["input_hex"])
         # fixtures carry pre-normalized+capcoded bytes: drive the loop direct
         ids, missing = host_tokenize(v, data)
@@ -62,13 +73,13 @@ def test_host_oracle_matches_reference(gpt2_vocab, capcode_vocab):  # noqa: F811
             err_msg=f"{case['vocab']}/{case['name']}")
 
 
-def test_native_matches_reference(gpt2_vocab, capcode_vocab):  # noqa: F811
+def test_native_matches_reference(fixture_vocab):
     from tokenmonster_tpu import native
     if native.get_lib() is None:
         pytest.skip("native lib unavailable")
-    for case in _load()["fixtures"]:
-        v = _vocab_for(case, gpt2_vocab, capcode_vocab)
-        nv = native.NativeVocab(v)
+    name, v = fixture_vocab
+    nv = native.NativeVocab(v)
+    for case in _cases(name):
         data = bytes.fromhex(case["input_hex"])
         # NativeVocab.tokenize expects pre-normalized+capcoded bytes, which
         # is exactly what the fixtures carry
@@ -80,13 +91,12 @@ def test_native_matches_reference(gpt2_vocab, capcode_vocab):  # noqa: F811
 
 
 def test_pallas_engine_matches_reference(capcode_vocab):  # noqa: F811
-    """The full Pallas engine (hash-probe match + in-kernel fd decision
-    rows + follow + stitch) reproduces the reference ids for the capcode-2
+    """The full device engine (automaton match + both fd decision rows +
+    follow + device stitch) reproduces the reference ids for the capcode-2
     forward-delete fixtures — the vocab class every TokenMonster-trained
     vocabulary belongs to."""
-    from tokenmonster_tpu.ops.scan import TpuTokenizer
-    tk = TpuTokenizer(capcode_vocab, chunk=512)
-    assert tk.engine == "pallas"
+    from tokenmonster_tpu.ops.scan import DeviceTokenizer
+    tk = DeviceTokenizer(capcode_vocab, chunk=512)
     for case in _load()["fixtures"]:
         if case["vocab"] != "capcode2_synth":
             continue
@@ -98,17 +108,17 @@ def test_pallas_engine_matches_reference(capcode_vocab):  # noqa: F811
             err_msg=f"{case['vocab']}/{case['name']}")
 
 
-def test_decision_engine_matches_reference(gpt2_vocab, capcode_vocab):  # noqa: F811
-    """The TPU decision-table engine (chain-followed on host, no stitcher)
+def test_decision_engine_matches_reference(fixture_vocab):
+    """The decision-table engine (chain-followed on host, no stitcher)
     reproduces the reference ids for every fixture."""
     from tokenmonster_tpu.ops.decision import chain_follow_host
     from test_decision import _tables
-    for case in _load()["fixtures"]:
-        v = _vocab_for(case, gpt2_vocab, capcode_vocab)
+    name, v = fixture_vocab
+    for case in _cases(name):
         if case["vocab"] == "gpt2" and case["name"] != "seed_text":
             continue  # one gpt2 case suffices: table build is ~1 min on CPU
         data = bytes.fromhex(case["input_hex"])
-        ctl, tok, dv = _tables(v, data, dense=True)
+        ctl, tok, dv = _tables(v, data)
         ids, missing = chain_follow_host(ctl, tok, len(data),
                                          dv.delete_token & 0xFFFFFF)
         assert missing == case["missing"], case["name"]

@@ -1,11 +1,11 @@
-"""TPU (phase-1 + phase-2 + stitch) tokenizer vs host oracle: exact parity."""
+"""Device (phase-1 + phase-2 + stitch) tokenizer vs host oracle: exact parity."""
 
 import numpy as np
 import pytest
 
 from tokenmonster_tpu.core.tokenizer import tokenize as host_tokenize
 from tokenmonster_tpu.core.vocab import Vocab
-from tokenmonster_tpu.ops.scan import TpuTokenizer
+from tokenmonster_tpu.ops.scan import DeviceTokenizer
 
 ENGLISH = (
     b"The quick brown fox jumps over the lazy dog. Pack my box with five "
@@ -36,13 +36,11 @@ def capcode_vocab():
 
 def _assert_parity(vocab, data, chunk):
     want_ids, want_missing = host_tokenize(vocab, data)
-    for engine in ("decision", "scan"):
-        tk = TpuTokenizer(vocab, chunk=chunk, engine=engine)
-        got_ids, got_missing = tk.tokenize(data)
-        assert got_missing == want_missing, (
-            f"[{engine}] missing mismatch: {got_missing} vs {want_missing}")
-        np.testing.assert_array_equal(np.asarray(got_ids),
-                                      np.asarray(want_ids))
+    tk = DeviceTokenizer(vocab, chunk=chunk)
+    got_ids, got_missing = tk.tokenize(data)
+    assert got_missing == want_missing, (
+        f"missing mismatch: {got_missing} vs {want_missing}")
+    np.testing.assert_array_equal(np.asarray(got_ids), np.asarray(want_ids))
 
 
 def test_capcode_vocab_parity(capcode_vocab):
@@ -64,19 +62,16 @@ def test_capcode_vocab_parity_random(capcode_vocab):
         _assert_parity(capcode_vocab, data, chunk)
 
 
-@pytest.fixture(scope="module")
-def gpt2_vocab():
-    from tokenmonster_tpu.train.imports import import_gpt2_json
-    return import_gpt2_json("/root/reference/yaml_guide/gpt2.json")
-
-
-def test_gpt2_parity(gpt2_vocab):
-    data = ENGLISH * 8
+def test_realtext_parity(realtext_any):
+    """The in-repo 32k vocabulary (capcode 2, and regenerated at capcode
+    0): normalized English/code text at two chunk widths."""
+    data = realtext_any.normalize(ENGLISH * 8)
     for chunk in (256, 4096):
-        _assert_parity(gpt2_vocab, data, chunk)
+        _assert_parity(realtext_any, data, chunk)
 
 
-def test_gpt2_parity_unicode(gpt2_vocab):
-    data = ("Ünïcödé everywhere: 你好世界 — em-dash, “curly quotes”, "
-            "emoji 🎉🎊, tabs\tand\nnewlines. " * 6).encode("utf-8")
-    _assert_parity(gpt2_vocab, data, 512)
+def test_realtext_parity_unicode(realtext_any):
+    data = realtext_any.normalize(
+        ("Ünïcödé everywhere: 你好世界 — em-dash, “curly quotes”, "
+         "emoji 🎉🎊, tabs\tand\nnewlines. " * 6).encode("utf-8"))
+    _assert_parity(realtext_any, data, 512)

@@ -1,4 +1,4 @@
-"""UTF-16 charset runtime parity: host oracle, TPU scan, native C++.
+"""UTF-16 charset runtime parity: host oracle, device path, native C++.
 
 The reference training tools exit on UTF-16 (getalltokens.go:1726-1737) but
 the runtime supports UTF-16 vocabularies (lilbufOffset=2 arithmetic,
@@ -34,13 +34,13 @@ def test_utf16_vocab_roundtrip():
     assert out == text
 
 
-def test_utf16_tpu_path_parity():
-    """The TPU scan handles charset 2 (lilbufOffset=2 arithmetic,
+def test_utf16_device_path_parity():
+    """The device path handles charset 2 (lilbufOffset=2 arithmetic,
     go/tokenmonster.go:1031-1036, :1093): ids match the host oracle."""
     import random
 
     from tokenmonster_tpu.core.tokenizer import tokenize as host_tokenize
-    from tokenmonster_tpu.ops.scan import TpuTokenizer
+    from tokenmonster_tpu.ops.scan import DeviceTokenizer
 
     toks = [u16(t) for t in ["hello", " hello", "world", " world", "he",
                              " the", "the", "lo wo", " wor", " w", "quick",
@@ -49,7 +49,7 @@ def test_utf16_tpu_path_parity():
     v = Vocab()
     v._generate(tokens=toks + singles, charset=2, normalize_string="none",
                 using_capcode=0, level=5, reset_token_ids=True)
-    tk = TpuTokenizer(v, chunk=256)
+    tk = DeviceTokenizer(v, chunk=256)
     rnd = random.Random(11)
     words = ["the", "quick", "hello", "world", "he", "lo", "worldly", "ld",
              "a", "zz"]

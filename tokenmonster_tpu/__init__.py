@@ -1,6 +1,6 @@
-"""tokenmonster_tpu — a TPU-native ungreedy tokenizer and vocabulary trainer.
+"""tokenmonster_tpu — an ungreedy tokenizer and vocabulary trainer in JAX.
 
-A from-scratch JAX/Pallas framework with the capabilities of TokenMonster
+A from-scratch JAX framework with the capabilities of TokenMonster
 (reference: alasdairforsythe/tokenmonster): capcode encoding, flag-based
 normalisation, the 6-branch ungreedy tokenizer, the `.vocab`/`.tok`/YAML
 formats, vocabulary generation/distillation training, and a drop-in Python

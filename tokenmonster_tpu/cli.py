@@ -81,7 +81,7 @@ def _cmd_trainvocab(argv):
     p.add_argument("-keep-trying", type=int, default=1000, dest="keep_trying")
     p.add_argument("-special", default=None)
     p.add_argument("-fast", action="store_true")
-    p.add_argument("-backend", default="native", choices=["native", "tpu"])
+    p.add_argument("-backend", default="native", choices=["native", "device"])
     p.add_argument("-include-256-bytes", action="store_true")
     p.add_argument("-include-128-bytes", action="store_true")
     p.add_argument("-include-utf8-bytes", action="store_true")
@@ -91,6 +91,9 @@ def _cmd_trainvocab(argv):
     p.add_argument("-exclude-other-bytes", action="store_true")
     p.add_argument("-max-rounds", type=int, default=None, dest="max_rounds")
     a = p.parse_args(argv)
+    if a.backend == "device":
+        from .utils.compile_cache import enable_compile_cache
+        enable_compile_cache()
     from .train.trainvocab import TrainConfig, train_vocab
     specials = []
     if a.special:

@@ -21,6 +21,8 @@ class ServerProcess:
     """Owns a server subprocess and multiplexes requests."""
 
     def __init__(self):
+        # the server uses only the host Vocab and never imports JAX, so it
+        # holds no device memory beside the caller's own process
         self._proc = subprocess.Popen(
             [sys.executable, "-m", "tokenmonster_tpu.cli", "server"],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE,

@@ -7,7 +7,7 @@ tokenmonster.cpp:607-697).  The ``.vocab`` file format depends on this order
 (alt indices always reference earlier records; go/tokenmonster.go:2636).
 
 This host implementation keeps the exact ordering contract but uses a plain
-hash map + per-first-byte length masks for lookup.  The TPU path uses the
+hash map + per-first-byte length masks for lookup.  The device path uses the
 reversed-key match automaton built in ops/automaton.py instead.
 """
 

@@ -1,12 +1,12 @@
 """Host reference tokenizer: the exact 6-branch ungreedy loop.
 
-This is the semantic oracle for the TPU kernels — a direct port of
+This is the semantic oracle for the device pipeline — a direct port of
 go/tokenmonster.go:1017-1279 (``tokenize``) with the exact score formula
 (:1075-1084) and branch tie-breaking order (score1 > score2 > score3 >
 score1b > score2b > score3b, matching the Go ``switch maxScore``).
 
 The fast paths live elsewhere: the C++ native module (native/) for host
-serving, and the Pallas kernel (ops/) for TPU.  Both are validated against
+serving, and the XLA device pipeline (ops/).  Both are validated against
 this implementation token-for-token.
 """
 

@@ -1,8 +1,8 @@
 """The Vocab object: load/save, construction, mutation, introspection.
 
-This is the TPU-framework equivalent of the reference core library's Vocab
+This is this framework's equivalent of the reference core library's Vocab
 (go/tokenmonster.go:38-107, 2599-3801).  Token metadata is kept as numpy
-struct-of-arrays aligned with dictionary index order so the TPU trie/kernel
+struct-of-arrays aligned with dictionary index order so the device table
 builders (ops/) can consume it zero-copy.
 """
 
@@ -98,7 +98,7 @@ def _gen_extended(table, using_capcode, normalizer):
 
 
 class Vocab:
-    """A TokenMonster-compatible vocabulary with TPU-friendly array storage."""
+    """A TokenMonster-compatible vocabulary with array storage."""
 
     def __init__(self):
         self.dictionary = Dictionary()

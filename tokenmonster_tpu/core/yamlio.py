@@ -11,7 +11,6 @@ import binascii
 from dataclasses import dataclass, field
 
 import numpy as np
-import yaml
 
 
 @dataclass
@@ -72,6 +71,7 @@ def _items(raw) -> list[YamlItem]:
 
 
 def parse(data: bytes) -> YamlVocab:
+    import yaml  # PyYAML: only YAML input needs it
     raw = yaml.safe_load(data.decode("utf-8", errors="surrogateescape"))
     v = YamlVocab()
     if not isinstance(raw, dict):

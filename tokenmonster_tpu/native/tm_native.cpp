@@ -266,7 +266,7 @@ void tm_vocab_free(void* vp) { delete (Vocab*)vp; }
 // Core scan over [i0, stop): emits ids and (optionally) per-emission records
 // packed as pos<<4 | fd | ntok<<1 | miss<<3 — the automaton state
 // (position, forwardDelete) at each emission, used for exact speculative
-// stitching (same scheme as the TPU scan kernel, ops/scan.py).
+// stitching (same scheme as the device scan, ops/scan.py).
 static int64_t tokenize_impl(const Vocab* v, const uint8_t* data, int64_t n,
                              int64_t i0, int64_t stop, uint32_t* out,
                              int64_t* missing_out,
@@ -1142,7 +1142,7 @@ void tm_build_meta(const uint8_t* key_bytes, const uint32_t* key_offs,
 
 // ---------------- Aho-Corasick DFA builder (ops/automaton.py in native) ----
 //
-// Builds the dense reversed-key AC DFA used by the TPU match kernels.
+// Builds the dense reversed-key AC DFA used by the device match pass.
 // Exact port of MatchAutomaton.build (ops/automaton.py): trie over
 // reversed keys, BFS fail links collapsed into dense rows, per-state
 // deepest-terminal packed outputs; alphabet 257 (byte 256 = reset).

@@ -1,14 +1,15 @@
-"""Aho-Corasick DFA over reversed keys: the TPU longest-match engine.
+"""Aho-Corasick DFA over reversed keys: the device longest-match engine.
 
 The reference finds the longest dictionary key starting at each position with
 a length-bucketed packed-key search (pansearch; C++ port at
 tokenmonster-cpp/src/tokenmonster.cpp:491-877).  That structure is pointer-
-chasing and branch-heavy — wrong shape for a TPU.  Here we restructure the
-problem: the longest key *starting* at position p in the text equals the
-longest reversed key *ending* at the mirrored position of the reversed text.
+chasing and branch-heavy — wrong shape for a data-parallel device.  Here we
+restructure the problem: the longest key *starting* at position p in the
+text equals the longest reversed key *ending* at the mirrored position of
+the reversed text.
 A dense Aho-Corasick DFA over reversed keys computes that for every position
 in one lockstep pass: exactly one (next_state, output) table gather per byte,
-no data-dependent branching — ideal for vmapped chunk lanes on the VPU.
+no data-dependent branching — ideal for lockstep chunk lanes.
 
 Each DFA transition entry carries the target state's "deepest terminal in the
 suffix-link chain" (dictionary index + match length), so a single gather per

@@ -10,8 +10,8 @@ per emitted token (phase B).
 
 Phase A trades ~4x redundant branch evaluations (every position instead of
 every ~4.3-byte token step) for complete data-parallelism: all dictionary /
-metadata lookups become giant batched gathers, which run at ~10G lookups/s
-on a v5e (measured) instead of serializing into the scan's per-step latency.
+metadata lookups become large batched gathers instead of serializing into
+the scan's per-step latency.
 Phase B keeps the speculative chunk-lane + host-stitch structure of
 ops/scan.py (lanes start at chunk boundaries with state (start, 0); the
 first shared (pos, fd) state with the neighbouring lane is an exact sync
@@ -27,8 +27,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from .scan import (DENSE_W1, DENSE_W2, _REC_DEL, _REC_FD, _REC_MISS,
-                   _REC_TOK, _win_ext, ungreedy_step)
+from .scan import _REC_DEL, _REC_FD, _REC_MISS, _REC_TOK, ungreedy_step
 
 CTL_FD = 1 << 6
 CTL_TOK = 1 << 7
@@ -38,50 +37,22 @@ CTL_MISS = 1 << 9
 
 def decision_tables(m_tab, mb_tab, bb, p1, index1_t, index2_t, ids3,
                     n, has_delete: bool, has_unk: bool, unk_token: int,
-                    lil_off: int = 1, meta5=None, dense_min: int = 1 << 17):
+                    lil_off: int = 1):
     """Compute the (2, P) decision tables over all positions.
 
     P = len(m_tab) (the match tables' padded length).  Row 0 is the fd=0
     transition, row 1 the fd=1 transition (identical to row 0 when the
     vocabulary has no delete token).  Returns (ctl, tok), both u32[2, P].
-
-    With ``meta5`` (the (n, 5) interleaved per-token metadata rows from
-    DeviceVocab), the transition function runs in dense mode: bounded-offset
-    lookups become gatherless butterfly shift-selects, and all per-token
-    metadata for a position arrives in ONE 5-wide row gather (per match
-    table) instead of ~25 scalar gathers (see scan.ungreedy_step).
-    Dense mode engages only for buffers >= ``dense_min`` positions: its
-    wide shift networks pay off on production-size dispatches but slow the
-    (CPU-backend) compile of the tiny buffers used in tests.
+    Every table lookup is a batched gather (see scan.ungreedy_step).
     """
     P = m_tab.shape[0]
     pos = jnp.arange(P, dtype=jnp.int32)
-    dense = meta5 is not None and P >= dense_min
-
-    ctx0 = ctx1 = None
-    if dense:
-        mm = jnp.take(meta5, (m_tab >> 6).astype(jnp.int32), axis=0)
-        ctx0 = {
-            "fd_val": 0,
-            "mm": mm,
-            "mbm": None,
-            "ext_m": _win_ext(m_tab, DENSE_W1),
-            "ext_bb": _win_ext(bb, DENSE_W2),
-            "ext_mmeta": _win_ext(mm[:, 0], DENSE_W1),
-        }
-        if has_delete:
-            mbm = jnp.take(meta5, (mb_tab >> 6).astype(jnp.int32), axis=0)
-            ctx0["mbm"] = mbm
-            ctx0["ext_mb"] = _win_ext(mb_tab, DENSE_W1)
-            ctx0["ext_mbmeta"] = _win_ext(mbm[:, 0], DENSE_W1)
-        ctx1 = dict(ctx0, fd_val=1)
 
     def one(fd_val: int):
         fd = jnp.full((P,), fd_val, jnp.int32)
         new_pos, new_fd, has_tok, is_b, miss, tok = ungreedy_step(
             pos, fd, m_tab, mb_tab, bb, p1, index1_t, index2_t, ids3,
-            n, n, has_delete, has_unk, unk_token, lil_off,
-            dense_ctx=(ctx1 if fd_val else ctx0))
+            n, n, has_delete, has_unk, unk_token, lil_off)
         delta = jnp.clip(new_pos - jnp.minimum(pos, n), 1, 63)
         ctl = (delta.astype(jnp.uint32)
                | (new_fd.astype(jnp.uint32) << 6)

@@ -5,9 +5,9 @@ micro-chunk by its (max_token_length+1)-byte window; equal prefixes of any
 length are then contiguous and the first-mismatch column between adjacent
 sorted windows yields per-length run boundaries (getalltokens.go's
 counting restructured, train/getalltokens.py::SortedWindows).  The host
-suffix sort is the pipeline's second-largest cost; on TPU the same order
-is ONE lexicographic multi-operand sort (jax.lax.sort, measured
-~400 M keys/s/operand on v5e) plus a vectorised first-diff pass.
+suffix sort is the pipeline's second-largest cost; on the device the same
+order is ONE lexicographic multi-operand sort (jax.lax.sort) plus a
+vectorised first-diff pass.
 
 Big-endian u32 word packing makes tuple-lexicographic order equal byte
 order; ties (identical windows) may order differently than the host sort,

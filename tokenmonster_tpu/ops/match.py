@@ -1,4 +1,4 @@
-"""Phase 1 of TPU tokenization: longest-match tables for every position.
+"""Phase 1 of device tokenization: longest-match tables for every position.
 
 Runs the dense reversed-key AC DFA (ops/automaton.py) over the text in
 lockstep chunk lanes.  Chunks carry a warm-up overlap of >= max key length

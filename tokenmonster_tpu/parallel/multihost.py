@@ -1,16 +1,14 @@
-"""Multi-host (DCN) distribution for the trainer's scoring step.
+"""Multi-process distribution for the trainer's scoring step.
 
 The reference trainer is single-host shared-memory (Go goroutines +
-channels, trainvocab.go:1826-2293).  Scaling past one host is a new,
-TPU-native component: processes are connected with ``jax.distributed``
-(gRPC coordination), devices form a hybrid mesh whose outer axis spans
-hosts over DCN and whose inner axis spans the chips of each host over ICI,
-and the per-token score vectors are psum-reduced over BOTH axes — XLA
-routes the intra-host partial sums over ICI and the cross-host combine
-over DCN.
+channels, trainvocab.go:1826-2293).  Scaling past one process is a new
+component: processes are connected with ``jax.distributed`` (gRPC
+coordination), devices form a two-level mesh whose outer axis spans
+processes and whose inner axis spans the devices of each process, and the
+per-token score vectors are psum-reduced over BOTH axes.
 
-Every process holds its own corpus shard (the host axis shards the text
-exactly like the ICI data axis does), so N-host scoring is bit-exact vs
+Every process holds its own corpus shard (the process axis shards the text
+exactly like the data axis does), so N-process scoring is bit-exact vs
 single-host scoring on the concatenated corpus: integer psum is
 associative and the strip layout is identical.
 """
@@ -35,7 +33,7 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None):
     """Initialize the JAX distributed runtime (idempotent).
 
-    With no arguments relies on the environment (TPU pod metadata or
+    With no arguments relies on the environment (cluster metadata or
     JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID); explicit
     arguments support manual multi-process launches (including CPU tests).
     """
@@ -50,8 +48,8 @@ def init_distributed(coordinator_address: str | None = None,
 
 
 def make_multihost_mesh() -> Mesh:
-    """(hosts, data) mesh: outer axis across processes (DCN), inner axis
-    across each process's local devices (ICI)."""
+    """(hosts, data) mesh: outer axis across processes, inner axis across
+    each process's local devices."""
     n_proc = jax.process_count()
     local = jax.local_device_count()
     devices = np.asarray(jax.devices()).reshape(n_proc, local)
@@ -63,8 +61,8 @@ def make_multihost_score_step(mesh: Mesh, chunk: int, has_delete: bool,
     """Mesh-sharded scoring step over (hosts, data).
 
     text is sharded over both axes (flattened shard per device); tables are
-    replicated.  Outputs are psum'd over ICI then DCN — identical on every
-    device of every host.
+    replicated.  Outputs are psum'd over the local devices, then across
+    processes — identical on every device of every process.
     """
     kernel = functools.partial(
         _shard_score, chunk=chunk, has_delete=has_delete,
@@ -73,7 +71,7 @@ def make_multihost_score_step(mesh: Mesh, chunk: int, has_delete: bool,
     def step(text, dfa, dout, sdfa, sout, bb_byte, p1, i1, i2, ids3):
         scores, n_tok, n_miss = kernel(
             text, dfa, dout, sdfa, sout, bb_byte, p1, i1, i2, ids3)
-        # ICI reduction first (cheap), then the DCN combine of host partials
+        # local reduction first, then the combine of process partials
         axes = (DATA_AXIS, HOST_AXIS)
         return (jax.lax.psum(scores, axes),
                 jax.lax.psum(n_tok, axes),

@@ -66,8 +66,8 @@ class SortedWindows:
         order = first_diff = None
         if os.environ.get("TM_GAT_DEVICE") == "1":
             # device-assisted suffix sort (ops/device_sort, SURVEY §8.6):
-            # opt-in because getalltokens often runs beside another TPU
-            # client.  Tie order may differ from the host sort; run
+            # opt-in because getalltokens often runs beside another
+            # process that holds the device.  Tie order may differ from the host sort; run
             # structure (hence counts and .tok bytes) is identical.
             try:
                 from ..ops.device_sort import device_sorted_windows

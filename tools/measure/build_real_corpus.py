@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Rebuild .tmp/real_corpus.bin — the real-text bench corpus.
 
-bench.py's real-text row (tpu_device_bps_realtext + FNV certificate)
+bench.py's real-text row (device_bps_realtext + FNV certificate)
 reads the first 4 MB of this file; tests/test_capcode_native.py's
 real-corpus parity test reads 1 MB of the capcoded form.  The corpus is
 real English prose + source code assembled deterministically from files
